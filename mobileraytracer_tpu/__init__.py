@@ -1,11 +1,11 @@
-"""mobileraytracer_tpu — a TPU-native differentiable ray tracer with the
-capability surface of MobileRT (TiagoMSSantos/MobileRayTracer), built from
-scratch on JAX / XLA / Pallas.
+"""mobileraytracer_tpu — a differentiable ray tracer with the capability
+surface of MobileRT (TiagoMSSantos/MobileRayTracer), built from scratch on
+JAX / XLA.
 
-Layer map (mirrors SURVEY.md §1, re-designed TPU-first):
+Layer map (mirrors SURVEY.md §1, re-designed as a wavefront engine):
   engine      renderer.Renderer / renderer.render_frame   (L1 Renderer)
   shading     shaders.engine (wavefront tree walker)      (L1/L2 Shaders)
-  geometry    ops.intersect (naive oracle), ops.bvh       (L1 Accelerators)
+  geometry    ops.intersect (naive oracle), ops.block_bvh (L1 Accelerators)
   scene       types.Scene pytree + builder.SceneBuilder   (L1 Scene)
   components  cameras, sampling, film, scenes, loaders    (L2/L3)
   frontends   cli                                         (L4/L5)

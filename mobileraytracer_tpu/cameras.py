@@ -30,7 +30,7 @@ def generate_rays(camera: Camera, u: jnp.ndarray, v: jnp.ndarray,
 
     Both camera models are evaluated and selected with `where` — the camera
     kind is a traced scalar, which keeps one compiled renderer for any
-    camera (branchless select is cheaper than retracing on TPU).
+    camera (a branchless select instead of one compile per camera kind).
     """
     u = jnp.asarray(u, jnp.float32)
     v = jnp.asarray(v, jnp.float32)

@@ -1,7 +1,7 @@
 """Command-line front-end mirroring the reference's 15-value positional
 contract (reference app/System_dependent/Native/Qt/MobileRT/main.cpp:9-63:
 THREADS SHADER SCENE SPP SPL WIDTH HEIGHT ACC REP OBJ MTL CAM PRINT ASYNC
-SHOWIMAGE), plus named flags for the TPU-specific extras.
+SHOWIMAGE), plus named flags for this engine's extras.
 
 Positional mode keeps the reference's benchmark scripts drop-in usable:
 
@@ -13,7 +13,7 @@ Named mode:
         --width 256 --height 256 --acc 3 --out cornell2.png
 
 THREADS is accepted for contract parity and ignored: XLA owns device
-parallelism (the reference's thread pool has no TPU counterpart).
+parallelism (the reference's thread pool has no counterpart here).
 """
 from __future__ import annotations
 
@@ -38,7 +38,7 @@ def _parse_bool(s: str) -> bool:
 def build_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
         prog="mobileraytracer_tpu",
-        description="TPU-native differentiable ray tracer "
+        description="differentiable ray tracer in JAX "
                     "(MobileRT capability surface)")
     p.add_argument("positional", nargs="*",
                    help="reference-compatible 15 positional values: THREADS "
@@ -112,13 +112,14 @@ def main(argv=None) -> int:
     if args.cpu:
         import jax
         jax.config.update("jax_platforms", "cpu")
-    import jax
 
     from . import scenes as builtin_scenes
     from .loaders import load_camera_file
     from .loaders.obj import load_obj_scene_ex
     from .renderer import Renderer
+    from .utils.compile_cache import enable_compile_cache
 
+    enable_compile_cache()
     timer = PhaseTimer()
     metrics = RunMetrics(args.metrics_jsonl or None)
 

@@ -83,9 +83,10 @@ SCENE_OBJ = 4
 FAR_SENTINEL = 1.0e7
 
 # Rays per traversal subtile: the granularity at which the block-BVH
-# traversals (ops/block_bvh.py, ops/pallas_bvh.py) share candidate lists,
-# and therefore the coherence unit the shading engine packs rays for.
-# Env-tunable (MRT_SUBTILE) for perf sweeps; must divide 128.
+# traversal (ops/block_bvh.py) shares candidate lists, and therefore the
+# coherence unit the shading engine packs rays for.  A plain-XLA shape
+# choice: 16 was tuned on other hardware and is not yet measured on a GPU.
+# Env-tunable (MRT_SUBTILE) for sweeps; must divide 128.
 import os as _os
 
 SUBTILE = int(_os.environ.get("MRT_SUBTILE", "16"))

@@ -21,9 +21,11 @@ normal, and L_in/L_out are radiances traced just inside/outside — which
 makes partial occlusion of the edge by other geometry handled for free
 (occluded stretches have L_in == L_out).
 
-TPU shape: all edges x samples evaluated as one flat ray batch through the
+Shape: all edges x samples evaluated as one flat ray batch through the
 standard wavefront tracer; the projection Jacobians are a vmapped 3x3
-solve + jacrev, entirely on the VPU.  No reference counterpart exists
+solve + jacrev.  The small contractions are written as elementwise
+products and sums, so no float32 product can drop to a reduced-precision
+matrix unit.  No reference counterpart exists
 (the C++ engine is forward-only); cited files are for the camera/jitter
 contracts only.
 """
@@ -347,14 +349,15 @@ def _shadow_boundary_term(scene: Scene, camera: Camera, config: RenderConfig,
     # intersected with the receiver tangent plane (held fixed).
     def q_of_z(zz, yy, rp, rn):
         dirn = zz - yy
-        tau = jnp.dot(rn, rp - yy) / jnp.where(
-            jnp.abs(jnp.dot(rn, dirn)) < 1e-12, 1e-12, jnp.dot(rn, dirn))
+        rn_d = jnp.sum(rn * dirn)
+        tau = jnp.sum(rn * (rp - yy)) / jnp.where(
+            jnp.abs(rn_d) < 1e-12, 1e-12, rn_d)
         xs = yy + tau * dirn
         return factors_of_point(camera, xs)
 
     qstar = jax.vmap(q_of_z)(z, y, recv_p, recv_n)          # (B, 2)
     jq = jax.vmap(jax.jacfwd(q_of_z))(z, y, recv_p, recv_n)  # (B, 2, 3)
-    tang = jnp.einsum("bij,bj->bi", jq, v1 - v0)            # (B, 2)
+    tang = jnp.sum(jq * (v1 - v0)[:, None, :], -1)          # (B, 2)
     tlen = jnp.linalg.norm(tang, axis=-1)
     n_q = jnp.stack([tang[:, 1], -tang[:, 0]], -1)
     n_q = n_q / jnp.maximum(tlen[:, None], 1e-20)
@@ -384,7 +387,7 @@ def _shadow_boundary_term(scene: Scene, camera: Camera, config: RenderConfig,
                     * viewport_mask(camera, config, qstar)
                     * tlen / samples, 0.0)
     wgt = wgt * jnp.repeat(mc_w, samples)
-    ndotj = jnp.einsum("bi,bij->bj", n_q, jq)               # (B, 3)
+    ndotj = jnp.sum(n_q[:, :, None] * jq, 1)                # (B, 3)
     g0 = (wgt * (1.0 - ss[:, 0]))[:, None] * ndotj
     g1 = (wgt * ss[:, 0])[:, None] * ndotj
     g0 = g0.reshape(budget, samples, 3).sum(1)
@@ -451,10 +454,10 @@ def vertex_grad(scene: Scene, camera: Camera, config: RenderConfig,
 
         loss, g_int = jax.value_and_grad(interior_loss)(verts)
     else:
-        # Chunked interior AD (VERDICT r4 #5: 1080p-scale gradients):
-        # L = mean over ALL pixels, so grad(L) is the sum of per-chunk
-        # grads of sum(rgb)/(3B).  Each chunk is one dispatch that stays
-        # under the backend watchdog and bounds backward-pass memory; the
+        # Chunked interior AD (1080p-scale gradients): L = mean over ALL
+        # pixels, so grad(L) is the sum of per-chunk grads of
+        # sum(rgb)/(3B).  Each chunk is one dispatch that bounds
+        # backward-pass memory; the
         # result is the same interior gradient up to fp summation order.
         ck = max(128, pixel_chunk - pixel_chunk % 128)
         denom = jnp.float32(b_pix * 3)
@@ -514,7 +517,7 @@ def _boundary_terms(verts, scene, camera, base_key, ek_arr, *, config,
     """The silhouette (+ optional shadow) boundary gradient terms — the
     body of vertex_grad's edge-sampling phase, hoisted to module level so
     the chunked (1080p-scale) mode can jit it as its own stable-cache
-    executable instead of fusing into one watchdog-killing dispatch."""
+    executable instead of fusing it into one large dispatch."""
     n_tri = verts["va"].shape[0]
     sa = (jnp.arange(edge_samples, dtype=jnp.float32) + 0.5) / edge_samples
 
@@ -590,9 +593,8 @@ def _boundary_terms(verts, scene, camera, base_key, ek_arr, *, config,
           + e1s[:, None, :] * sa[None, :, None]).reshape(-1, 3)
     jac = jax.vmap(jax.jacrev(
         lambda p: factors_of_point(camera, p)))(xs)   # (Es*S, 2, 3)
-    ndotj = jnp.einsum("ek,ekd->ed",
-                       jnp.repeat(nhs, edge_samples, 0),
-                       jac)                           # (Es*S, 3)
+    ndotj = jnp.sum(jnp.repeat(nhs, edge_samples, 0)[:, :, None] * jac,
+                    1)                                # (Es*S, 3)
     ndotj = ndotj.reshape(-1, edge_samples, 3)
 
     wgt = dl * (lens * mc_w)[:, None] / edge_samples  # (Es, S)

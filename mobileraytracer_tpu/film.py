@@ -2,7 +2,7 @@
 
 The reference accumulates directly in an int32 ABGR bitmap using an
 integer-packed incremental mean (reference app/MobileRT/Utils/Utils.cpp:
-66-90).  On TPU we keep a float32 accumulator (better precision, free
+66-90).  Here a float32 accumulator is kept (better precision, free
 fusion into the shading kernel) and quantize once for display; an exact
 integer-parity mode reproduces the reference's per-sample rounding for
 golden-image comparison tests.

@@ -7,7 +7,7 @@ the Android-asset path) and from a file path (Texture.cpp:89-115) — and
 It accepts whatever channel count the file has (grayscale, RGB, RGBA,
 palette); sampling always reads three components (Texture.cpp:28-48).
 
-This module is the TPU-native equivalent: decode on the host with PIL
+This module is the equivalent here: decode on the host with PIL
 into a dense (H, W, 3) float32 array in [0, 1] (the device-side atlas
 format, shaders/common.py), normalizing every source mode to RGB —
 grayscale broadcasts, alpha is dropped, palettes are expanded.  Decode

@@ -1,9 +1,8 @@
-"""TPU-first two-level "block BVH" traversal.
+"""Two-level "block BVH" traversal in plain XLA: the BVH accelerator.
 
-The escape-index walk in ops/bvh.py is exact but TPU-hostile: one tiny
-gather per ray per node, serialized by a while_loop — measured ~2k rays/s
-on a v5e chip.  This module keeps the same median-split build but
-traverses with dense fixed-shape phases that map onto the VPU:
+The escape-index walk in ops/bvh.py is exact but serial: one tiny gather
+per ray per node inside a while_loop.  This module keeps the same
+median-split build but traverses with dense fixed-shape phases:
 
   level 0  supers:  groups of `blocks_per_super` consecutive leaf blocks
                     (consecutive preorder leaves are spatially local
@@ -37,7 +36,7 @@ import jax.numpy as jnp
 import numpy as np
 
 from .. import constants as C
-from ..types import Hit, Scene, Triangles
+from ..types import Hit, Scene, Triangles, pytree_dataclass, static_field
 from . import intersect as nv
 from .bvh import build_triangle_bvh
 
@@ -50,17 +49,14 @@ DEFAULT_TOP_M = 96
 _RAY_CHUNK = 65536
 
 
-from flax import struct
-
-
-@struct.dataclass
+@pytree_dataclass
 class BlockGrid:
     """Two-level block table over the reordered triangle array.  The
     budgets are static (hashed into the jit cache), the arrays are leaves.
 
-    Geometry is laid out for the VPU: AABBs componentwise (no trailing-3
-    dims, which XLA pads to a full 128 lane) and triangles packed into one
-    (N, 12) row so phase C issues a single gather per step.
+    Geometry is laid out componentwise: AABBs as (3, ...) planes (no
+    trailing-3 dims) and triangles packed into one (N, 12) row so phase C
+    issues a single gather per step.
     """
     super_lo: jnp.ndarray     # (3, K1) componentwise AABB min
     super_hi: jnp.ndarray     # (3, K1)
@@ -72,10 +68,10 @@ class BlockGrid:
     # block — pax..paz, abx..abz, acx..acz, valid, 0, 0 — so phase C is a
     # single large-row gather per step.
     tri_blocks: jnp.ndarray   # (K1 * BPS, BS, 12)
-    block_size: int = struct.field(pytree_node=False, default=128)
-    top_s: int = struct.field(pytree_node=False, default=DEFAULT_TOP_S)
-    top_m: int = struct.field(pytree_node=False, default=DEFAULT_TOP_M)
-    tile: int = struct.field(pytree_node=False, default=16)
+    block_size: int = static_field(default=128)
+    top_s: int = static_field(default=DEFAULT_TOP_S)
+    top_m: int = static_field(default=DEFAULT_TOP_M)
+    tile: int = static_field(default=16)
 
     @property
     def num_supers(self) -> int:
@@ -96,8 +92,10 @@ def build_blocks(tris: Triangles, block_size: int = DEFAULT_BLOCK_SIZE,
     bcount = counts[leaf]
     k = bmin.shape[0]
 
-    bps = min(blocks_per_super, k)
-    k1 = -(-k // bps)
+    # A scene without triangles still gets one empty block, so the
+    # traversal keeps its shapes and finds nothing.
+    bps = max(1, min(blocks_per_super, k))
+    k1 = max(1, -(-k // bps))
     padded = k1 * bps
 
     def pad(a, fill):
@@ -202,10 +200,9 @@ def _traverse_chunk(grid: BlockGrid, tris: Triangles, o, d, t_init,
     Rays are grouped into tiles of TILE consecutive lanes; every phase
     selects candidates *per tile* (reducing entry distances over the
     tile's rays), so all triangle/AABB fetches are tile-level — a few
-    hundred contiguous rows per step instead of per-ray gathers, which XLA
-    lowers catastrophically on TPU.  Primary and shadow rays are coherent
-    in lane order by construction (pixel-ordered batches), bounce rays
-    approximately so.
+    hundred contiguous rows per step instead of per-ray gathers.  Primary
+    and shadow rays are coherent in lane order by construction
+    (pixel-ordered batches), bounce rays approximately so.
     """
     b = o.shape[0]
     TILE = grid.tile

@@ -5,11 +5,11 @@ app/MobileRT/Accelerators/RegularGrid.hpp: 32^3 cells by default
 (Shader.cpp:57), parallel insertion with exact primitive-vs-cell tests,
 Amanatides-Woo 3D-DDA stepping in `intersect`, RegularGrid.hpp:333-515).
 
-TPU notes: the build is host-side numpy producing a CSR cell table
-(cell_start / items).  Traversal is an Amanatides-Woo walk expressed as a
-batched while_loop; like the reference it is exact, but the per-cell
-item gathers make it slower than the block BVH on TPU — it exists for
-capability parity and as a second correctness oracle (the reference's
+The build is host-side numpy producing a CSR cell table (cell_start /
+items).  Traversal is an Amanatides-Woo walk expressed as a batched
+while_loop; like the reference it is exact, but its serial per-cell item
+gathers are expected to make it slower than the block BVH (not measured
+on a GPU) — it exists for capability parity and as a second correctness oracle (the reference's
 AcceleratorTestEngine renders through all three accelerators).  Insertion
 uses conservative AABB overlap instead of the reference's exact
 triangle-vs-box test: supersets never change results, only cost.
@@ -25,10 +25,9 @@ from typing import Tuple
 import jax
 import jax.numpy as jnp
 import numpy as np
-from flax import struct
 
 from .. import constants as C
-from ..types import Hit, Scene
+from ..types import Hit, Scene, pytree_dataclass, static_field
 from . import intersect as nv
 
 _BIG = C.RAY_LENGTH_MAX
@@ -37,14 +36,14 @@ DEFAULT_GRID_SIZE = 32
 MAX_ITEMS_PER_CELL_TEST = 64   # per DDA step, tested in fixed-size slices
 
 
-@struct.dataclass
+@pytree_dataclass
 class RegularGrid:
     bounds_min: jnp.ndarray   # (3,)
     bounds_max: jnp.ndarray   # (3,)
     cell_start: jnp.ndarray   # (S^3 + 1,) CSR offsets
     item_kind: jnp.ndarray    # (T,) PRIM_TRIANGLE | PRIM_SPHERE
     item_id: jnp.ndarray      # (T,)
-    size: int = struct.field(pytree_node=False, default=DEFAULT_GRID_SIZE)
+    size: int = static_field(default=DEFAULT_GRID_SIZE)
 
 
 def build_grid(scene: Scene, size: int = DEFAULT_GRID_SIZE) -> Scene:

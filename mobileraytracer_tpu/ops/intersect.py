@@ -1,6 +1,6 @@
 """Ray-primitive intersection kernels (pure-JAX "Naive" accelerator).
 
-This is the framework's correctness oracle, the TPU analogue of the
+This is the framework's correctness oracle, the analogue of the
 reference's linear-scan accelerator (reference app/MobileRT/Accelerators/
 Naive.hpp:85-94).  Every test is a dense vectorized op over a (B rays x N
 primitives) tile, scanned in chunks so memory stays bounded; the BVH path
@@ -27,12 +27,10 @@ _BIG = C.RAY_LENGTH_MAX
 _CHUNK = 512  # primitives per scan step; bounds the (B, chunk) tile size
 _SMALL = 32   # unroll threshold: component-wise loop beats (B, N, 3) tiles
 
-# TPU layout note: a (B, N, 3) or (B, 3) array puts a tiny dimension on the
-# 128-lane axis, so XLA pads it ~42x and every op pays the relayout.  For
-# the scene tables that are always tiny (planes/spheres/lights, capacity
-# <= 8 in every shipped scene) the closest-hit scans below therefore unroll
-# a Python loop over primitives with flat (B,) component math — measured
-# ~40x faster on TPU v5e than the dense (B, N) formulation.
+# Layout note: for the scene tables that are always tiny (planes, spheres,
+# lights; capacity <= 8 in every shipped scene) the closest-hit scans below
+# unroll a Python loop over primitives with flat (B,) component math, which
+# keeps a tiny trailing dimension out of every array.
 
 
 def _dot(a, b):
@@ -324,8 +322,8 @@ def _fill_hit(scene: Scene, o, d, t_pl, id_pl, t_sp, id_sp, t_tr, id_tr,
 
     `tri_attr` is an optional packed (N, 32) per-triangle attribute table
     (cols 0:3 pa, 3:6 ab, 6:9 ac, 9:12 n_a, 12:15 n_b, 15:18 n_c, 18:20
-    uv_a, 20:22 uv_b, 22:24 uv_c, 24 mat_id): one wide row gather is ~15x
-    cheaper on TPU than seven narrow ones."""
+    uv_a, 20:22 uv_b, 22:24 uv_c, 24 mat_id): one wide row gather in place
+    of seven narrow ones."""
     b = o.shape[0]
     ts = jnp.stack([t_pl, t_sp, t_tr, t_li], 0)          # (4, B)
     ids = jnp.stack([id_pl, id_sp, id_tr, id_li], 0)

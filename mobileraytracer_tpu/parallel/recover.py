@@ -4,7 +4,7 @@ Optimizes a scene's material table so its render matches target images —
 the inverse-rendering workload the reference cannot express at all (its
 engine is forward-only C++).  The loop is a single jitted update over the
 device mesh: forward render, reverse-mode backward, gradient psum across
-chips (ICI) and hosts (DCN on a 2-D mesh), optax update — compiled once,
+devices and hosts (on a 2-D mesh), optax update — compiled once,
 stepped many times.  Optimizer state checkpoints/resumes through
 utils.checkpoint so long recoveries survive preemption.
 """

@@ -11,14 +11,14 @@ app/Components/Samplers/*.{hpp,cpp}) that differ along two axes:
   `ArrayMask` 0xFFFFF (reference app/MobileRT/Sampler.hpp:58-63,
   app/MobileRT/Utils/Constants.hpp:66-79).
 
-The atomic-counter plumbing has no TPU analogue: the draw order there is
+The atomic-counter plumbing has no counterpart here: the draw order there is
 whatever thread-claim order the OS produced, i.e. an *arbitrary*
 assignment of stream indices to pixels.  We keep the value sequences
 exactly and replace the arbitrary assignment with the canonical
 deterministic one — stream index = pixel id, two consecutive draws per
 pixel (u then v), a new pass of `domain` draws per sample index — which
 makes every variant reproducible by construction and invariant under
-sharding/device count (SURVEY.md §2.2 Samplers → TPU mapping).
+sharding/device count (SURVEY.md §2.2 Samplers).
 
 Variants ("pixel_sampler" names accepted by RenderConfig):
 
@@ -97,7 +97,7 @@ def _static_array(kind: str) -> np.ndarray:
 def _pcg_rxs_m_xs_32(state: jnp.ndarray) -> jnp.ndarray:
     """One PCG-RXS-M-XS-32 output word from a uint32 state — a genuine
     member of the PCG family (O'Neill 2014 §6.3.4), all-32-bit so it runs
-    natively on TPU without x64.  Stands in for the reference's pcg32
+    natively without x64.  Stands in for the reference's pcg32
     (PCG.cpp:6-13), which is seeded from std::random_device and therefore
     defines only 'a high-quality uniform stream', not specific values."""
     state = state * jnp.uint32(747796405) + jnp.uint32(2891336453)

@@ -3,7 +3,7 @@
 The reference engine draws randomness from global 2^20-entry precomputed
 arrays advanced by relaxed atomic cursors (reference app/MobileRT/
 Sampler.hpp:58-63, Shader.cpp:188-233) — a lock-free shared-memory design
-that has no useful TPU analogue.  We replace the *plumbing* with JAX's
+that has no useful analogue on an accelerator.  We replace the *plumbing* with JAX's
 counter-based `threefry` keys folded over (pixel, sample, bounce, purpose)
 so every draw is reproducible by construction and identical regardless of
 device count or sharding.  The *distributions* (uniform pixel jitter,

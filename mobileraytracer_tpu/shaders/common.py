@@ -18,9 +18,9 @@ def park_dead_lanes(o: jnp.ndarray, d: jnp.ndarray, live: jnp.ndarray):
     The tile-cooperative traversals bound each 16-ray subtile with interval
     arithmetic over the lanes' origins/directions; one far-sentinel lane
     blows the bounds wide open and forces the subtile to walk nearly every
-    candidate (measured 3x slowdown on NEE shadow batches).  Instead, each
-    dead lane *duplicates one live lane of its own subtile* — the bounds
-    stay exactly the live hull and the duplicate's result is discarded.
+    candidate.  Instead, each dead lane *duplicates one live lane of its
+    own subtile* — the bounds stay exactly the live hull and the
+    duplicate's result is discarded.
     Fully-dead subtiles get the far sentinel so their walk finds zero
     candidates and exits immediately.  All values stay finite, keeping
     reverse-mode AD NaN-free.
@@ -139,7 +139,6 @@ def direct_lighting(scene: Scene, hit: Hit, keys: jax.Array,
                     samples_light: int, shadows: bool,
                     occluded_fn=None, mask=None,
                     share_mask=None, share_width: int = 16,
-                    coherent: bool = False,
                     reverse: bool = False,
                     share_all: bool = False) -> jnp.ndarray:
     """Next-event estimation for diffuse hits.
@@ -171,7 +170,7 @@ def direct_lighting(scene: Scene, hit: Hit, keys: jax.Array,
     shadow_rays = jnp.zeros((b,), jnp.int32)
     has_lights = scene.lights.num > 0
     if occluded_fn is None:
-        occluded_fn = lambda *a, **k: intersect.occluded_naive(*a)
+        occluded_fn = intersect.occluded_naive
     # Lanes outside `mask` trace a duplicate of a live lane's shadow ray
     # (discarded) so traversal subtiles stay coherent; see park_dead_lanes.
     origin = hit.point
@@ -182,8 +181,7 @@ def direct_lighting(scene: Scene, hit: Hit, keys: jax.Array,
         # lane's key, so fold/pick/sample on the DOWNSAMPLED key set and
         # broadcast — bit-identical to folding per lane and taking lane 0
         # (which is what the non-share_all path below computes), but
-        # ~share_width x fewer threefry evaluations: the per-lane folds
-        # were ~14 ms of the 512^2 conference NEE pass (round-5 profile).
+        # ~share_width x fewer threefry evaluations.
         sw = share_width
         keys_ds = keys.reshape(b // sw, sw, -1)[:, 0]
 
@@ -212,8 +210,7 @@ def direct_lighting(scene: Scene, hit: Hit, keys: jax.Array,
             # shared atomic RNG cursors correlate neighboring pixels the
             # same way (Sampler.hpp:58-63).  Coherent picks keep a
             # subtile's shadow bundle aimed at one light, which the
-            # tile-interval traversal bounds depend on (divergent bundles
-            # were 5x slower on TPU).
+            # tile-interval traversal bounds depend on.
             #
             # `share_mask` limits sharing to lanes on their first bounce:
             # later bounces run through the compacted wavefront
@@ -221,10 +218,9 @@ def direct_lighting(scene: Scene, hit: Hit, keys: jax.Array,
             # a per-lane pick keeps the image invariant to sharding and
             # compaction layout.  The lane-group width sharing one light
             # sample is a SAMPLING POLICY (RenderConfig.nee_share): 16 =
-            # the banded subtile hull, 128 = one tile-kernel cone (the
-            # production TPU setting).  Any width keeps every pixel's
-            # marginal sample uniform (unbiased); batches not divisible by
-            # the width skip sharing.
+            # one traversal subtile, 128 = the benchmark's setting.  Any
+            # width keeps every pixel's marginal sample uniform
+            # (unbiased); batches not divisible by the width skip sharing.
             st = share_width
             if b % st == 0:
                 def subtile_share(k):
@@ -237,9 +233,7 @@ def direct_lighting(scene: Scene, hit: Hit, keys: jax.Array,
                 # The light *point* is shared per group too: each pixel's
                 # marginal point is still uniform over the light (unbiased,
                 # same argument as the pick), and one shared target point
-                # collapses the subtile's shadow bundle to a tight cone —
-                # measured 16.6 -> 4.6 mean candidate-block visits per
-                # subtile on the conference proxy.
+                # collapses the subtile's shadow bundle to a tight cone.
                 k_point = subtile_share(k_point)
             lidx = jax.vmap(sampling.pick_light, (0, None))(
                 k_pick, scene.lights.num)
@@ -269,8 +263,7 @@ def direct_lighting(scene: Scene, hit: Hit, keys: jax.Array,
                 org_s, dir_s, md_s = origin, ldir, dist
             org_t, dir_t = park_dead_lanes(org_s, dir_s, live)
             blocked = occluded_fn(
-                scene, org_t, dir_t, md_s, hit.prim_kind, hit.prim_id,
-                coherent=coherent)
+                scene, org_t, dir_t, md_s, hit.prim_kind, hit.prim_id)
             visible = visible & ~blocked
         contrib = radiance * cos_nl[:, None]
         total = total + jnp.where((visible & has_lights)[:, None], contrib, 0.0)

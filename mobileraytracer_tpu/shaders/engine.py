@@ -11,10 +11,10 @@ traces the whole batch at once, accumulates the node's own contribution and
 pushes its children.  Contributions are purely additive with multiplicative
 weights, so the walk order does not change the sum.
 
-Every iteration is a full-batch trace + NEE — uniform work, no divergence,
-exactly what the TPU wants.  Radiance is differentiable w.r.t. material
-tables (albedo/emission) because all weights are smooth functions of them;
-the scan has a fixed trip count so reverse-mode AD works.
+Every iteration is a full-batch trace + NEE — uniform work, no divergence.
+Radiance is differentiable w.r.t. material tables (albedo/emission)
+because all weights are smooth functions of them; the scan has a fixed
+trip count so reverse-mode AD works.
 
 The PathTracer NEE guard (reference PathTracer.cpp:107-113) is post-order:
 a node whose NEE succeeded (Ld > 0) zeroes its *entire* indirect-diffuse
@@ -48,65 +48,41 @@ class Tracer(NamedTuple):
 
 
 def make_tracer(config: RenderConfig, differentiable: bool = False) -> Tracer:
+    """The closest-hit and shadow queries of `config.accelerator`.  The grid
+    and BVH tracers read the structure that `ops.build_accelerator` put in
+    the scene's `bvh` slot; a grid config on a scene without its grid falls
+    back to the naive scan."""
     if config.accelerator in (C.ACC_NONE, C.ACC_NAIVE):
-        return Tracer(
-            closest=lambda *a, **k: intersect.intersect_scene_naive(*a),
-            occluded=lambda *a, **k: intersect.occluded_naive(*a))
+        return Tracer(closest=intersect.intersect_scene_naive,
+                      occluded=intersect.occluded_naive)
     if config.accelerator == C.ACC_REGULAR_GRID:
         from ..ops import grid as grid_ops
 
-        def closest_g(scene, o, d, pk, pi, coherent=False):
+        def closest_g(scene, o, d, pk, pi):
             if isinstance(scene.bvh, grid_ops.RegularGrid):
                 return grid_ops.intersect_scene_grid(scene, o, d, pk, pi)
             return intersect.intersect_scene_naive(scene, o, d, pk, pi)
 
-        def occluded_g(scene, o, d, md, pk, pi, coherent=False):
+        def occluded_g(scene, o, d, md, pk, pi):
             if isinstance(scene.bvh, grid_ops.RegularGrid):
                 return grid_ops.occluded_grid(scene, o, d, md, pk, pi)
             return intersect.occluded_naive(scene, o, d, md, pk, pi)
 
         return Tracer(closest=closest_g, occluded=occluded_g)
     if config.accelerator == C.ACC_BVH:
-        from ..ops import block_bvh, bvh as bvh_ops, pallas_bvh
+        from ..ops import block_bvh
 
-        # `coherent=True` marks batches whose 128-ray tiles are spatially
-        # coherent bundles (the primary pass in patch-major pixel order and
-        # its NEE shadows with per-tile shared light points): those run the
-        # tile-granular kernel (one DMA + exit test per 128 rays, measured
-        # 1.9x the banded kernel on conference primaries).  Incoherent
-        # batches — the compacted walker tail, secondary NEE — keep the
-        # banded per-subtile kernel whose tighter 16-ray hulls tolerate
-        # divergence.
-        def closest(scene, o, d, pk, pi, coherent=False):
-            if isinstance(scene.bvh, pallas_bvh.PallasGrid):
-                mode = "tilemt" if coherent else "banded"
-                return pallas_bvh.intersect_scene_pallas(
-                    scene, o, d, pk, pi, mode=mode,
-                    differentiable=differentiable)
-            if isinstance(scene.bvh, block_bvh.BlockGrid):
-                return block_bvh.intersect_scene_blocks(
-                    scene, o, d, pk, pi, differentiable=differentiable)
-            return bvh_ops.intersect_scene_bvh(scene, o, d, pk, pi)
+        def closest(scene, o, d, pk, pi):
+            return block_bvh.intersect_scene_blocks(
+                scene, o, d, pk, pi, differentiable=differentiable)
 
-        def occluded(scene, o, d, md, pk, pi, coherent=False):
+        def occluded(scene, o, d, md, pk, pi):
             if differentiable:
                 # Occlusion is boolean (no gradient path); keep the
                 # traversal entirely off the AD tape.
                 sg = jax.lax.stop_gradient
                 scene, o, d, md = sg(scene), sg(o), sg(d), sg(md)
-            if isinstance(scene.bvh, pallas_bvh.PallasGrid):
-                # `coherent` marks shared-light REVERSED first-bounce
-                # cones: their point origin keeps coarse selection hulls
-                # tight, so the banded walk runs with the shallow
-                # shadow-tuned windows (SHADOW_SEL).  Incoherent
-                # (secondary, per-lane-light) shadows keep the default
-                # per-subtile windows.
-                sel = pallas_bvh.SHADOW_SEL if coherent else {}
-                return pallas_bvh.occluded_pallas(scene, o, d, md, pk, pi,
-                                                  mode="banded", **sel)
-            if isinstance(scene.bvh, block_bvh.BlockGrid):
-                return block_bvh.occluded_blocks(scene, o, d, md, pk, pi)
-            return bvh_ops.occluded_bvh(scene, o, d, md, pk, pi)
+            return block_bvh.occluded_blocks(scene, o, d, md, pk, pi)
 
         return Tracer(closest=closest, occluded=occluded)
     raise ValueError(f"unknown accelerator {config.accelerator}")
@@ -271,12 +247,7 @@ def trace_radiance(scene: Scene, config: RenderConfig, tracer: Tracer,
         # wavefront analogue of the reference's threads going idle once
         # their tiles are done (Renderer.cpp:117-167).
         org, dirn = common.park_dead_lanes(e["org"], e["dirn"], active)
-        # (Routing morton-sorted chunks to the tile-granular closest
-        # kernel was measured 2% SLOWER than the banded kernel — bounce
-        # bundles are coherent enough for tight 16-ray hulls but not for
-        # 128-ray tile windows.)
-        hit = tracer.closest(scene, org, dirn, e["pkind"], e["pid"],
-                             coherent=primary)
+        hit = tracer.closest(scene, org, dirn, e["pkind"], e["pid"])
         le, kd, ks, kt, ior = common.bind_material(scene, hit)
 
         hit_ok = active & ~hit.missed
@@ -303,9 +274,7 @@ def trace_radiance(scene: Scene, config: RenderConfig, tracer: Tracer,
             # its occlusion segments REVERSED (from the light point toward
             # the surfaces): the shared origin collapses the traversal's
             # interval hulls to the exact shadow cone (see
-            # common.direct_lighting).  `coherent` additionally routes the
-            # reversed bundle to the tile-granular kernel when the share
-            # group spans a whole 128-ray tile.
+            # common.direct_lighting).
             # On the primary step every lane has it == 0, so sharing is
             # statically total and sampling runs on the downsampled key
             # set (bit-identical, ~share_width x cheaper).  With
@@ -322,7 +291,7 @@ def trace_radiance(scene: Scene, config: RenderConfig, tracer: Tracer,
                 occluded_fn=tracer.occluded, mask=diffuse,
                 share_mask=None if shared_step else (it == 0),
                 share_width=config.nee_share,
-                share_all=shared_step, reverse=rev, coherent=rev)
+                share_all=shared_step, reverse=rev)
             ld = kd * ld_sum / jnp.float32(config.samples_light)
             has_l = scene.lights.num > 0
             ld = jnp.where((diffuse & has_l)[:, None], ld, 0.0)
@@ -457,10 +426,6 @@ def trace_radiance(scene: Scene, config: RenderConfig, tracer: Tracer,
         # tiles finish (Renderer.cpp:117-167).  Contributions are additive
         # and event keys are lane-local (see WalkState.pops), so chunked
         # execution is bitwise-identical to the full-batch walk.
-        #
-        # The first step is the patch-major primary wavefront: its closest
-        # pass and NEE shadows run the coherent tile kernel (see
-        # make_tracer).
         state, _ = step(state, keys, primary=True)
         # Chunk size: the PathTracer keeps ~every diffuse lane live after
         # iteration 1 (indirect bounce), so large chunks amortize the
@@ -468,9 +433,8 @@ def trace_radiance(scene: Scene, config: RenderConfig, tracer: Tracer,
         # FULL WalkState (tens of MB at big batches) every chunk
         # iteration; Whitted/NoShadows tails carry only specular lanes —
         # small chunks stop the tail from re-tracing mostly-dead batches.
-        # Measured on conference 512^2 (v5e, round 5): PathTracer
-        # 8/4/2/1 -> 0.404/0.436/0.333/0.229 Mrays/s; Whitted frame
-        # 16/32/8 -> 108.9/101.3/126.0 ms.
+        # The divisors 4 and 32 were tuned on other hardware; they are not
+        # yet measured on a GPU.
         div = config.walk_chunk_div
         if div is None:
             div = 4 if shader == C.SHADER_PATHTRACER else 32
@@ -486,13 +450,13 @@ def trace_radiance(scene: Scene, config: RenderConfig, tracer: Tracer,
         # stack-top rays instead of lane order.  Hemisphere bounce rays are
         # directionally incoherent in lane order, which fattens the
         # traversal's 16-ray interval hulls; sorting regroups them into
-        # tight bundles (measured +6% on the conference PathTracer).  The
+        # tight bundles.  The
         # image is unchanged: contributions are additive and event keys
         # are lane-local, so processing order is irrelevant (with
         # nee_share_secondary the grouping is a sampling policy and
         # coherent groups are exactly what it wants).  Whitted's tail is
         # mostly mirror rays that are already lane-coherent, so the sort
-        # only costs there (104.6 vs 101.3 ms measured) and stays off.
+        # stays off there.
         sort_chunks = shader == C.SHADER_PATHTRACER
 
         def body(carry):

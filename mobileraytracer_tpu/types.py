@@ -1,9 +1,9 @@
 """Scene / camera / hit-record pytrees and the run configuration.
 
 The reference engine stores scenes as arrays-of-structs C++ objects
-(reference app/MobileRT/Scene.hpp:20-63, Shapes/*.hpp).  On TPU we keep the
-same information as structure-of-arrays device arrays so every intersection
-test is a dense vectorized op.  All geometry arrays are padded to a static
+(reference app/MobileRT/Scene.hpp:20-63, Shapes/*.hpp).  Here the same
+information is kept as structure-of-arrays device arrays so every
+intersection test is a dense vectorized op.  All geometry arrays are padded to a static
 capacity with a validity mask so shapes stay static under jit.
 """
 from __future__ import annotations
@@ -14,9 +14,26 @@ from typing import Optional
 import jax
 import jax.numpy as jnp
 import numpy as np
-from flax import struct
 
 from . import constants as C
+
+
+def pytree_dataclass(cls):
+    """Frozen dataclass registered as a JAX pytree.  Fields made with
+    `static_field` are hashed into the tree structure (and so into jit
+    cache keys); every other field is a leaf.  Adds `replace(**changes)`."""
+    cls = dataclasses.dataclass(frozen=True)(cls)
+    fields = dataclasses.fields(cls)
+    meta = [f.name for f in fields if f.metadata.get("static", False)]
+    data = [f.name for f in fields if not f.metadata.get("static", False)]
+    cls.replace = lambda self, **changes: dataclasses.replace(self, **changes)
+    return jax.tree_util.register_dataclass(cls, data_fields=data,
+                                            meta_fields=meta)
+
+
+def static_field(**kwargs):
+    """A `pytree_dataclass` field that is static metadata, not a leaf."""
+    return dataclasses.field(metadata={"static": True}, **kwargs)
 
 
 def _f32(x) -> jnp.ndarray:
@@ -27,7 +44,7 @@ def _i32(x) -> jnp.ndarray:
     return jnp.asarray(x, jnp.int32)
 
 
-@struct.dataclass
+@pytree_dataclass
 class Triangles:
     """SoA triangle batch (reference app/MobileRT/Shapes/Triangle.hpp:18-27:
     pointA, AB, AC, per-vertex normals, per-vertex UV, materialIndex)."""
@@ -49,7 +66,7 @@ class Triangles:
         return self.point_a.shape[0]
 
 
-@struct.dataclass
+@pytree_dataclass
 class Spheres:
     """SoA sphere batch (reference app/MobileRT/Shapes/Sphere.hpp: center,
     squared radius, materialIndex)."""
@@ -64,7 +81,7 @@ class Spheres:
         return self.center.shape[0]
 
 
-@struct.dataclass
+@pytree_dataclass
 class Planes:
     """SoA plane batch (reference app/MobileRT/Shapes/Plane.hpp: point,
     unit normal, materialIndex).  Planes are unbounded two-sided surfaces."""
@@ -79,7 +96,7 @@ class Planes:
         return self.point.shape[0]
 
 
-@struct.dataclass
+@pytree_dataclass
 class Materials:
     """Material table (reference app/MobileRT/Material.hpp:13-67).
 
@@ -100,7 +117,7 @@ class Materials:
         return self.le.shape[0]
 
 
-@struct.dataclass
+@pytree_dataclass
 class Lights:
     """Unified light table covering the reference's PointLight and AreaLight
     components (reference app/Components/Lights/{PointLight,AreaLight}.cpp).
@@ -126,7 +143,7 @@ class Lights:
         return self.kind.shape[0]
 
 
-@struct.dataclass
+@pytree_dataclass
 class TextureAtlas:
     """Nearest-sampled RGB texture atlas.
 
@@ -150,10 +167,11 @@ def empty_texture_atlas() -> TextureAtlas:
     )
 
 
-@struct.dataclass
+@pytree_dataclass
 class Scene:
     """Scene pytree: geometry + materials + lights (+ optional accelerator
-    arrays attached by `accel.build`).  Replicated per host on a mesh."""
+    arrays attached by `ops.build_accelerator`).  Replicated per host on a
+    mesh."""
 
     triangles: Triangles
     spheres: Spheres
@@ -161,18 +179,19 @@ class Scene:
     materials: Materials
     lights: Lights
     atlas: TextureAtlas
-    # Threaded-BVH arrays over triangles; None until accel.build_bvh runs.
+    # Acceleration structure (block BVH, regular grid, or the escape-index
+    # BVH); None until ops.build_accelerator (or a module's build) runs.
     bvh: Optional["BVH"] = None
 
 
-@struct.dataclass
+@pytree_dataclass
 class BVH:
     """Flat threaded (escape-index) BVH over the triangle batch.
 
     Replaces the reference's pointer+stack BVH (reference
     app/MobileRT/Accelerators/BVH.hpp:56-60, 327-384) with a stackless
     hit-link/miss-link layout: traversal is a single index walk, which maps
-    to a bounded `while_loop` on TPU instead of divergent stack juggling.
+    to a bounded `while_loop` instead of divergent stack juggling.
 
     Nodes are stored in DFS preorder, so an internal node's left child is
     the next node; `node_skip` is the escape index taken when the node's
@@ -192,7 +211,7 @@ class BVH:
         return self.node_min.shape[0]
 
 
-@struct.dataclass
+@pytree_dataclass
 class Camera:
     """Camera pytree (reference app/MobileRT/Camera.hpp:16-71 plus the
     Perspective/Orthographic components).
@@ -258,7 +277,7 @@ def orthographic_camera(position, look_at, up, size_h: float, size_v: float) -> 
     )
 
 
-@struct.dataclass
+@pytree_dataclass
 class Hit:
     """Closest-hit record batch (reference app/MobileRT/Intersection.hpp:14-55).
 
@@ -300,7 +319,8 @@ def make_miss(batch_shape) -> Hit:
 @dataclasses.dataclass(frozen=True)
 class RenderConfig:
     """Static run parameters, mirroring the reference Config POD (reference
-    app/MobileRT/Config.hpp:12-83) plus TPU-specific knobs.
+    app/MobileRT/Config.hpp:12-83) plus this engine's own sampling and
+    scheduling options.
 
     This is a plain (hashable) dataclass — it is passed as a static argument
     to jitted render functions.
@@ -341,10 +361,10 @@ class RenderConfig:
     # Width of the lane group sharing one NEE light pick/point on the
     # FIRST bounce (shaders/common.direct_lighting): every pixel's
     # marginal sample stays uniform, so any width is unbiased — wider
-    # groups trade sample decorrelation for shadow-bundle coherence
-    # (128 = one tile-kernel bundle per light cone; the production TPU
-    # bench setting).  16 (the banded subtile) keeps the sample stream
-    # identical to round 3.  Like the reference's shared atomic sampler
+    # groups trade sample decorrelation for shadow-bundle coherence.
+    # The benchmark runs 128, a width chosen on other hardware and not
+    # yet measured on a GPU; 16 (one traversal subtile) is the default.
+    # Like the reference's shared atomic sampler
     # cursors (Sampler.hpp:58-63), this is a sampling policy, not an
     # execution detail: images are invariant to sharding/compaction for
     # any fixed width, provided every shard holds a multiple of the
@@ -353,9 +373,8 @@ class RenderConfig:
     # Trace first-bounce NEE occlusion segments from the (group-shared)
     # light point toward the surfaces instead of surface->light: occlusion
     # is symmetric in the segment, and the point origin collapses the
-    # traversal's candidate hulls to the exact shadow cone (the round-4
-    # NEE pass cost ~42% of the conference frame on scattered hit-point
-    # hulls).  See shaders/common.direct_lighting.
+    # traversal's candidate hulls to the exact shadow cone.  See
+    # shaders/common.direct_lighting.
     nee_reverse: bool = True
     # Share NEE light picks/points across execution lane groups on
     # SECONDARY bounces too (first bounces always share via nee_share).
@@ -366,7 +385,7 @@ class RenderConfig:
     # on per-lane secondary picks).  The PathTracer's indirect bounces
     # spend most of their time in divergent per-lane shadow walks; with
     # sharing they get the same reversed shared-cone treatment as the
-    # primary NEE (the production PathTracer bench setting).
+    # primary NEE (the PathTracer benchmark turns it on).
     nee_share_secondary: bool = False
     # Wavefront-compaction chunk divisor (batch/div lanes per compacted
     # chunk iteration; None = per-shader default in shaders/engine.py).

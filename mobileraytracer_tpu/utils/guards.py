@@ -1,4 +1,4 @@
-"""Debug guards and structured failure detection — the TPU analogue of
+"""Debug guards and structured failure detection — the analogue of
 the reference's sanitizer + checkSystemError layers.
 
 The reference compiles ASan/LSan into debug builds (reference
@@ -7,8 +7,8 @@ app/CMakeLists.txt:208-213), inspects errno after every phase via
 ErrorCode table), asserts geometry validity in shape ctors (death-tested
 by app/Unit_Testing/TestAABB.cpp:27-32), and maps native failures to
 typed Java exceptions including `LowMemoryException` for bad_alloc
-(JNI_layer.cpp:114-126,231-239).  None of those mechanisms exist on a
-TPU; SURVEY.md §5.2/§5.3 names the equivalents built here:
+(JNI_layer.cpp:114-126,231-239).  None of those mechanisms reach code
+compiled by XLA; SURVEY.md §5.2/§5.3 names the equivalents built here:
 
 * `checked_render` — runs a frame under `jax.experimental.checkify`
   float checks (NaN / inf / div-by-zero detected *inside* the compiled

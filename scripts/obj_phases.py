@@ -4,18 +4,18 @@
 The reference's native driver logs four phases on the 331k-triangle
 conference workload: "Loading Obj file" (tinyobjloader parse), "Filling
 scene", "Creating shader" (accelerator build) and "Rendering"
-(/root/reference/app/System_dependent/Native/C_wrapper.cpp:103-130,
+(reference app/System_dependent/Native/C_wrapper.cpp:103-130,
 248-251).  This script produces the same table for our stack: the
 procedural conference proxy is serialized once to OBJ+MTL (bit-exact
 round trip, tests/test_loaders.py), then loaded through the REAL parser
 path (native/objparser.cpp via ctypes + numpy assembly), and the
-accelerator build is timed for both the CPU block-BVH and the TPU Pallas
-block tables.  Render-phase numbers live in bench.py / PERF.md.
+block-BVH build is timed.  Render-phase numbers live in bench.py / PERF.md.
 
-Run: PYTHONPATH=/root/repo python scripts/obj_phases.py
+Run from the repository root: PYTHONPATH=. python scripts/obj_phases.py
 """
 import json
 import os
+import pathlib
 import time
 
 import jax
@@ -28,7 +28,8 @@ def main():
     from mobileraytracer_tpu.loaders.obj import (load_obj_scene_ex,
                                                  save_obj_scene)
 
-    path = "/root/repo/.cache/conference_proxy.obj"
+    root = pathlib.Path(__file__).resolve().parent.parent
+    path = str(root / ".cache" / "conference_proxy.obj")
     os.makedirs(os.path.dirname(path), exist_ok=True)
 
     t0 = time.perf_counter()
@@ -43,15 +44,11 @@ def main():
     s2, li = load_obj_scene_ex(path)
     t_load = time.perf_counter() - t0
 
-    from mobileraytracer_tpu.ops import block_bvh, pallas_bvh
+    from mobileraytracer_tpu.ops import block_bvh
 
     t0 = time.perf_counter()
     _ = block_bvh.build(s2)
     t_block = time.perf_counter() - t0
-
-    t0 = time.perf_counter()
-    _ = pallas_bvh.build_blocks(s2.triangles)
-    t_pallas = time.perf_counter() - t0
 
     rows = {
         "triangles": w["triangles"],
@@ -62,7 +59,6 @@ def main():
         "scene_fill_s": round(li["fill_seconds"], 3),
         "obj_load_total_s": round(t_load, 2),
         "block_bvh_build_s": round(t_block, 2),
-        "pallas_tables_build_s": round(t_pallas, 2),
     }
     print(json.dumps(rows))
 

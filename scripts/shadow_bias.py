@@ -14,7 +14,7 @@ discontinuity-crossing paths) — versus the estimator's gradient.
 
 bias = AD(interior + primary boundaries) - FD(everything).
 
-Run: PYTHONPATH=/root/repo python scripts/shadow_bias.py
+Run from the repository root: PYTHONPATH=. python scripts/shadow_bias.py
 """
 import json
 

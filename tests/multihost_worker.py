@@ -1,7 +1,7 @@
 """Worker for the 2-process multi-host test (run by test_multihost.py).
 
-Each process joins the jax.distributed runtime (simulated DCN over
-localhost), exposes 4 virtual CPU devices (8 global), builds the 2-D
+Each process joins the jax.distributed runtime (a simulated host
+boundary over localhost), exposes 4 virtual CPU devices (8 global), builds the 2-D
 (hosts x chips) mesh and runs a sharded render + a sharded train step.
 Process 0 writes the results as JSON for the pytest side to compare
 against the single-process ground truth.

@@ -9,6 +9,7 @@ import pytest
 from mobileraytracer_tpu import constants as C
 from mobileraytracer_tpu import scenes
 from mobileraytracer_tpu.builder import SceneBuilder
+from mobileraytracer_tpu.ops import build_accelerator
 from mobileraytracer_tpu.ops import bvh as bvh_ops
 from mobileraytracer_tpu.ops import intersect as nv
 from mobileraytracer_tpu.renderer import render_frame
@@ -88,7 +89,7 @@ def test_bvh_render_matches_naive_render():
                          accelerator=C.ACC_NAIVE)
     cfg_b = RenderConfig(width=32, height=32, spp=1, shader=C.SHADER_WHITTED,
                          accelerator=C.ACC_BVH)
-    scene_b = bvh_ops.build(scene)
+    scene_b = build_accelerator(scene, cfg_b)
     img_n = np.asarray(render_frame(scene_b, cam, cfg_n, key)["image"])
     img_b = np.asarray(render_frame(scene_b, cam, cfg_b, key)["image"])
     np.testing.assert_allclose(img_n, img_b, atol=1e-6)

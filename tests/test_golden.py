@@ -14,7 +14,6 @@ budget: isolated silhouette pixels may differ (float-order effects at
 geometry edges), so the oracle is {mean |diff| small} + {few outlier
 pixels}, not bitwise equality.
 """
-import os
 import pathlib
 
 import jax
@@ -23,59 +22,18 @@ import pytest
 
 from mobileraytracer_tpu import constants as C
 from mobileraytracer_tpu import scenes
+from mobileraytracer_tpu.ops import build_accelerator
 from mobileraytracer_tpu.renderer import render_frame
 from mobileraytracer_tpu.types import RenderConfig
+from mobileraytracer_tpu.utils.golden import (ANALYTIC_GOLDENS, GOLDEN_DIR,
+                                              assert_close, load_golden,
+                                              render_builtin, unpack_bitmap)
 
-GOLD = pathlib.Path(__file__).resolve().parent.parent / "refgold" / "golden"
 RES = pathlib.Path("/root/reference/app/src/androidTest/resources")
 
 pytestmark = pytest.mark.skipif(
-    not (GOLD / "manifest.json").exists(),
+    not (GOLDEN_DIR / "manifest.json").exists(),
     reason="no goldens captured (run refgold/build.sh + capture.py)")
-
-
-def load_golden(name):
-    raw = np.fromfile(GOLD / f"{name}.bin", dtype=np.int32)
-    w, h = int(raw[0]), int(raw[1])
-    bitmap = raw[2:].reshape(h, w)
-    r = (bitmap & 0xFF).astype(np.float32)
-    g = ((bitmap >> 8) & 0xFF).astype(np.float32)
-    b = ((bitmap >> 16) & 0xFF).astype(np.float32)
-    return np.stack([r, g, b], axis=-1) / 255.0
-
-
-def unpack_ours(bitmap):
-    bm = np.asarray(bitmap).astype(np.int64)
-    r = (bm & 0xFF).astype(np.float32)
-    g = ((bm >> 8) & 0xFF).astype(np.float32)
-    b = ((bm >> 16) & 0xFF).astype(np.float32)
-    return np.stack([r, g, b], axis=-1) / 255.0
-
-
-def assert_close(ours, ref, mean_tol=1.5 / 255, outlier_tol=4.0 / 255,
-                 outlier_frac=0.02, label=""):
-    diff = np.abs(ours - ref)
-    mean = diff.mean()
-    frac = (diff.max(axis=-1) > outlier_tol).mean()
-    assert mean < mean_tol, (
-        f"{label}: mean |diff| {mean:.5f} >= {mean_tol:.5f}")
-    assert frac < outlier_frac, (
-        f"{label}: {frac * 100:.2f}% pixels differ by more than "
-        f"{outlier_tol * 255:.0f}/255")
-
-
-def render_builtin(scene_id, shader, size, spp=1, spl=1, acc=C.ACC_NAIVE):
-    # Accelerator choice cannot change the image (exact traversal); naive
-    # avoids building block tables for the handful of analytic primitives.
-    scene, cam = scenes.load_builtin(scene_id, 1.0)
-    cfg = RenderConfig(width=size, height=size, spp=spp, shader=shader,
-                       accelerator=acc, samples_light=spl, scene_id=scene_id,
-                       accumulation="int_parity")
-    out = render_frame(
-        scene, cam, cfg, jax.random.PRNGKey(0),
-        max_point=np.asarray(scenes.DEPTHMAP_MAX_POINT[scene_id],
-                             np.float32))
-    return unpack_ours(out["bitmap"])
 
 
 _OBJ_CACHE = {}
@@ -89,12 +47,7 @@ def _obj_scene(base, acc):
         from mobileraytracer_tpu.loaders.obj import load_obj_scene_ex
         scene, info = load_obj_scene_ex(str(base) + ".obj",
                                         str(base) + ".mtl")
-        if acc == C.ACC_BVH:
-            from mobileraytracer_tpu.ops import block_bvh
-            scene = block_bvh.build(scene)
-        elif acc == C.ACC_REGULAR_GRID:
-            from mobileraytracer_tpu.ops import grid as grid_ops
-            scene = grid_ops.build_grid(scene)
+        scene = build_accelerator(scene, RenderConfig(accelerator=acc))
         camera = load_camera_file(str(base) + ".cam", 1.0)
         _OBJ_CACHE[key] = (scene, camera)
     return _OBJ_CACHE[key]
@@ -109,21 +62,12 @@ def render_obj(base, shader, size, spp=1, spl=1, acc=C.ACC_BVH):
         scene, camera, cfg, jax.random.PRNGKey(0),
         max_point=np.asarray(scenes.DEPTHMAP_MAX_POINT[C.SCENE_OBJ],
                              np.float32))
-    return unpack_ours(out["bitmap"])
+    return unpack_bitmap(out["bitmap"])
 
 
 # --- deterministic analytic-scene goldens ---------------------------------
 
-@pytest.mark.parametrize("name,scene_id,shader", [
-    ("cornell_noshadows_256", C.SCENE_CORNELL, C.SHADER_NOSHADOWS),
-    ("cornell_whitted_256", C.SCENE_CORNELL, C.SHADER_WHITTED),
-    ("cornell_depthmap_256", C.SCENE_CORNELL, C.SHADER_DEPTHMAP),
-    ("cornell_diffuse_256", C.SCENE_CORNELL, C.SHADER_DIFFUSE),
-    ("spheres_whitted_256", C.SCENE_SPHERES, C.SHADER_WHITTED),
-    ("spheres2_whitted_256", C.SCENE_SPHERES2, C.SHADER_WHITTED),
-    ("cornell2_depthmap_256", C.SCENE_CORNELL2, C.SHADER_DEPTHMAP),
-    ("cornell2_diffuse_256", C.SCENE_CORNELL2, C.SHADER_DIFFUSE),
-])
+@pytest.mark.parametrize("name,scene_id,shader", ANALYTIC_GOLDENS)
 def test_analytic_golden(name, scene_id, shader):
     ref = load_golden(name)
     ours = render_builtin(scene_id, shader, ref.shape[0])

@@ -1,9 +1,9 @@
-"""Multi-host execution over a simulated DCN boundary (SURVEY.md §2.6).
+"""Multi-host execution over a simulated host boundary (SURVEY.md §2.6).
 
 Two separate OS processes join a jax.distributed runtime on localhost, each
 contributing 4 virtual CPU chips; the 2-D (hosts x chips) mesh shards the
 render and the gradient psum across the process boundary — the CPU
-stand-in for "ICI within a host, DCN across hosts".  Results must match
+stand-in for "fast links within a host, the network across hosts".  Results must match
 the single-process 8-device run exactly (the counter-based RNG makes
 sharding a pure execution detail).
 """
